@@ -1,10 +1,8 @@
-"""Multi-host scaling efficiency harness (the BASELINE north-star ">90%
-multi-host efficiency" measurement, runnable today on the CPU backend and
-on a real pod unchanged).
+"""Multi-process emulation of the sharded SAPG stepper on the CPU backend.
 
 For each process count P it spawns P OS processes, each owning one virtual
 CPU device; the P processes form a global ('data','chains') mesh via
-jax.distributed and run the SAME sharded SAPG stepper a TPU pod runs
+jax.distributed and run the SAME sharded SAPG stepper a multi-host job runs
 (parallel.sapg_parallel.run_sapg_sharded_steps — per-step cross-host
 traffic is ONE lax.pmean of O(#hyperparams) scalars).  Weak scaling:
 chains-per-process is fixed, so
@@ -14,10 +12,10 @@ chains-per-process is fixed, so
   python benchmarks/bench_multihost.py                 # P = 1,2,4,8
   BENCH_MH_PROCS=1,2 BENCH_MH_STEPS=100 python benchmarks/bench_multihost.py
 
-CPU-host caveat: with fewer physical cores than processes the compute
-oversubscribes and the measured efficiency is a LOWER bound on the
-communication-limited efficiency a pod would see (each SAPG step is
-compute-heavy per device; the collective is 4 scalars).
+CPU only, by design: it never opens an accelerator (one process per card
+is the rule there), and every row it prints carries "platform": "cpu".
+These are CPU timings of the multi-process control flow, not device
+numbers; with fewer physical cores than processes they oversubscribe.
 """
 import json
 import os
@@ -46,10 +44,10 @@ def _worker(port: str, nprocs: int, pid: int) -> None:
             num_processes=nprocs,
             process_id=pid,
         )
-    from semiblind_tv_tpu.parallel.mesh import make_mesh
-    from semiblind_tv_tpu.parallel.sapg_parallel import run_sapg_sharded_steps
-    from semiblind_tv_tpu.runtime import build_problem, gaussian_preset
-    from semiblind_tv_tpu.utils import synthetic_wheel
+    from semiblind_tv.parallel.mesh import make_mesh
+    from semiblind_tv.parallel.sapg_parallel import run_sapg_sharded_steps
+    from semiblind_tv.runtime import build_problem, gaussian_preset
+    from semiblind_tv.utils import synthetic_wheel
 
     cfg = gaussian_preset(fix_w1=False, fix_w2=False)
     problem = build_problem(synthetic_wheel(SIZE), cfg, jax.random.key(0))
@@ -69,8 +67,9 @@ def _worker(port: str, nprocs: int, pid: int) -> None:
     dt = time.perf_counter() - t0
     if pid == 0:
         total = nprocs * CHAINS_PER_PROC * STEPS
-        print(f"WORKER_RESULT {json.dumps(dict(procs=nprocs, wall_s=dt, chain_iters_per_sec=total / dt))}",
-              flush=True)
+        row = dict(platform=jax.default_backend(), procs=nprocs, wall_s=dt,
+                   chain_iters_per_sec=total / dt)
+        print(f"WORKER_RESULT {json.dumps(row)}", flush=True)
 
 
 def _free_port() -> int:

@@ -41,7 +41,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     import oracles
-    from semiblind_tv_tpu.utils import load_image, synthetic_wheel
+    from semiblind_tv.utils import load_image, synthetic_wheel
 
     if args.image == "phantom":
         x = np.asarray(synthetic_wheel(args.size), dtype=np.float64)

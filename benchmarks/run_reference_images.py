@@ -32,9 +32,9 @@ def main(argv=None):
     p.add_argument("--no-fix-w", action="store_true")
     args = p.parse_args(argv)
 
-    from semiblind_tv_tpu.cli.run_demo import main as demo_main
-    from semiblind_tv_tpu.runtime.checkpoint import run_stats
-    from semiblind_tv_tpu.utils import available_images
+    from semiblind_tv.cli.run_demo import main as demo_main
+    from semiblind_tv.runtime.checkpoint import run_stats
+    from semiblind_tv.utils import available_images
 
     names = (args.images.split(",") if args.images else available_images())
     if not names:

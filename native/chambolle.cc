@@ -4,7 +4,7 @@
 // Role in the framework (the reference is pure MATLAB; its "native" compute
 // was MATLAB builtins — SURVEY.md §2): this library is the CPU-native
 // counterpart of ops/tv.py — an independent implementation used as a test
-// oracle against the JAX/Pallas paths and as a fast fallback for host-side
+// oracle against the JAX paths and as a fast fallback for host-side
 // tooling (bench baselines, result post-processing) without pulling in a
 // JAX runtime.  Semantics match utils/chambolle_prox_TV_stop.m:120-149
 // iteration-for-iteration: Neumann stencils, tau=0.249-style damped dual
@@ -12,7 +12,7 @@
 // warm-started duals.
 //
 // Build: `make -C native` -> libsemiblind_native.so (see native/Makefile).
-// Binding: semiblind_tv_tpu/native (ctypes).
+// Binding: semiblind_tv/native (ctypes).
 
 #include <cmath>
 #include <cstdint>

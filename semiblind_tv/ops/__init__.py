@@ -1,0 +1,26 @@
+from semiblind_tv.ops.psf import (  # noqa: F401
+    gaussian_kernel,
+    gaussian_kernel_grads,
+    laplace_kernel,
+    laplace_kernel_grads,
+    moffat_kernel,
+    moffat_kernel_grads,
+)
+from semiblind_tv.ops.fourier import (  # noqa: F401
+    BlurOperator,
+    otf_rfft,
+    otf_fft,
+    rfft_weights,
+    parseval_dot,
+    parseval_norm_sq,
+)
+from semiblind_tv.ops.tv import (  # noqa: F401
+    tv_norm,
+    chambolle_prox,
+    divergence,
+    forward_gradient,
+)
+from semiblind_tv.ops.lipschitz import (  # noqa: F401
+    power_iteration,
+    max_eigenval_closed_form,
+)

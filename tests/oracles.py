@@ -2,7 +2,7 @@
 
 These are independent re-derivations (spatial/full-spectrum domain, plain
 loops) of the algorithms in /root/reference, used to validate the fused
-frequency-domain TPU implementations.  Everything is float64.
+frequency-domain JAX implementations.  Everything is float64.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.ops import fourier, psf
-from semiblind_tv_tpu.solvers.csalsa import csalsa, csalsa_synthesis, csalsa_tv
+from semiblind_tv.ops import fourier, psf
+from semiblind_tv.solvers.csalsa import csalsa, csalsa_synthesis, csalsa_tv
 from tests import oracles
 
 SHAPE = (32, 32)
@@ -180,7 +180,7 @@ def test_csalsa_generic_tv_init_matches_tv_specialisation(rng):
 def test_csalsa_synthesis_frame(rng):
     """csalsa.m synthesis-frame path: Woodbury LS identity + constrained
     recovery through a Parseval TI Haar frame."""
-    from semiblind_tv_tpu.ops.wavelet import ti_analysis, ti_synthesis
+    from semiblind_tv.ops.wavelet import ti_analysis, ti_synthesis
 
     blur, H, H_full, x, y, sigma = _make(rng)
     levels = 1

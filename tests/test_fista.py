@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.ops import fourier, psf
-from semiblind_tv_tpu.solvers import fista_tv
+from semiblind_tv.ops import fourier, psf
+from semiblind_tv.solvers import fista_tv
 from tests import oracles
 
 SHAPE = (32, 32)

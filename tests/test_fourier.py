@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.ops import fourier, psf
+from semiblind_tv.ops import fourier, psf
 from tests import oracles
 
 SHAPE = (32, 48)

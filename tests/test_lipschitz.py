@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.ops import fourier, lipschitz, psf
+from semiblind_tv.ops import fourier, lipschitz, psf
 
 
 def test_power_iteration_matches_closed_form():

@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu import metrics
+from semiblind_tv import metrics
 
 
 def test_mse_db(rng):

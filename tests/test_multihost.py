@@ -48,7 +48,8 @@ def test_two_process_distributed_sapg(tmp_path):
     for out in outs:
         for line in out.splitlines():
             if line.startswith("RESULT "):
-                _, pid, theta = line.split()
+                _, pid, theta, platform = line.split()
+                assert platform == "cpu", line
                 results[int(pid)] = float(theta)
     assert set(results) == {0, 1}, outs
     # both processes computed the same global trajectory
@@ -60,7 +61,8 @@ def test_two_process_distributed_sapg(tmp_path):
     for out in outs:
         for line in out.splitlines():
             if line.startswith("SPATIAL "):
-                _, pid, obj = line.split()
+                _, pid, obj, platform = line.split()
+                assert platform == "cpu", line
                 spatial[int(pid)] = float(obj)
     assert set(spatial) == {0, 1}, outs
     assert spatial[0] == spatial[1]
@@ -71,7 +73,8 @@ def test_two_process_distributed_sapg(tmp_path):
     for out in outs:
         for line in out.splitlines():
             if line.startswith("ORBAX "):
-                _, pid, ok, theta = line.split()
+                _, pid, ok, theta, platform = line.split()
+                assert platform == "cpu", line
                 orbax[int(pid)] = (int(ok), float(theta))
     assert set(orbax) == {0, 1}, outs
     assert orbax[0][0] == 1 and orbax[1][0] == 1, outs

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from semiblind_tv_tpu import native
+from semiblind_tv import native
 from tests import oracles
 
 pytestmark = pytest.mark.skipif(
@@ -38,7 +38,7 @@ def test_chambolle_native_warm_start(rng):
 def test_chambolle_native_vs_jax(rng):
     import jax.numpy as jnp
 
-    from semiblind_tv_tpu.ops.tv import chambolle_prox
+    from semiblind_tv.ops.tv import chambolle_prox
 
     g = 10 * rng.standard_normal((32, 32))
     f_n, _, _, k_n, _ = native.chambolle_prox_native(g, 0.7, 25)

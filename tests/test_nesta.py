@@ -2,9 +2,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.ops import fourier, psf
-from semiblind_tv_tpu.ops.tv import tv_norm
-from semiblind_tv_tpu.solvers.nesta import nesta
+from semiblind_tv.ops import fourier, psf
+from semiblind_tv.ops.tv import tv_norm
+from semiblind_tv.solvers.nesta import nesta
 from tests import oracles
 
 SHAPE = (32, 32)

@@ -12,15 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from semiblind_tv_tpu.parallel.mesh import make_mesh
-from semiblind_tv_tpu.parallel.sapg_parallel import (
+from semiblind_tv.parallel.mesh import make_mesh
+from semiblind_tv.parallel.sapg_parallel import (
     run_sapg_sharded,
     run_sapg_sharded_steps,
 )
-from semiblind_tv_tpu.runtime import build_problem, gaussian_preset
-from semiblind_tv_tpu.sapg import run_sapg
-from semiblind_tv_tpu.sapg.estimator import SAPGDivergenceError
-from semiblind_tv_tpu.utils import synthetic_wheel
+from semiblind_tv.runtime import build_problem, gaussian_preset
+from semiblind_tv.sapg import run_sapg
+from semiblind_tv.sapg.estimator import SAPGDivergenceError
+from semiblind_tv.utils import synthetic_wheel
 
 SIZE = 32
 
@@ -62,7 +62,7 @@ def test_chains_sharding_invariance():
 
 @needs8
 def test_full_sharded_estimator_matches_single_device():
-    """THE production requirement (VERDICT round 1, item 1): the complete
+    """THE production requirement: the complete
     sharded pipeline — warm-up, main scan, EB extraction, posterior
     moments — equals run_sapg(n_chains=8) single-device up to cross-chain
     reduction order (f64, tight tolerance)."""
@@ -221,3 +221,19 @@ def test_entry_compiles():
     out_carry, trace = jax.jit(fn)(carry, ii)
     jax.block_until_ready(trace["theta"])
     assert np.isfinite(float(trace["theta"]))
+
+
+def test_dryrun_multichip_raises_when_devices_short():
+    """No fallback to a virtual mesh: too few devices is an error."""
+    import __graft_entry__
+
+    with pytest.raises(RuntimeError, match="needs 16 devices"):
+        __graft_entry__.dryrun_multichip(16)
+
+
+def test_spatial_mesh_raises_when_devices_short():
+    from semiblind_tv.parallel.mesh import make_spatial_mesh
+
+    assert make_spatial_mesh(4).devices.size == 4
+    with pytest.raises(ValueError):
+        make_spatial_mesh(len(jax.devices()) + 1)

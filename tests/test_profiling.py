@@ -4,7 +4,7 @@ import json
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.runtime.profiling import CallCounter, MetricsLogger, StepTimer
+from semiblind_tv.runtime.profiling import CallCounter, MetricsLogger, StepTimer
 
 
 def test_step_timer():

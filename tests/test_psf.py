@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from semiblind_tv_tpu.ops import psf
+from semiblind_tv.ops import psf
 from tests import oracles
 
 

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.ops import fourier, psf
-from semiblind_tv_tpu.solvers import salsa_tv, soft_threshold
+from semiblind_tv.ops import fourier, psf
+from semiblind_tv.solvers import salsa_tv, soft_threshold
 from tests import oracles
 
 SHAPE = (32, 32)
@@ -68,66 +68,3 @@ def test_soft_threshold():
     want = y / (y + 1.0) * np.asarray(x)
     np.testing.assert_allclose(got, want, rtol=1e-12)
     np.testing.assert_allclose(soft_threshold(x, 0.0), x)
-
-
-def test_salsa_kernel_prox_modes_match_xla(rng):
-    """The tiled and streamed warm-dual prox backends (SALSA's >512² kernel
-    modes, r5) produce the identical solve trajectory as the XLA prox —
-    interpret-mode twins of the on-chip bit-identity tests."""
-    from semiblind_tv_tpu.solvers.salsa import _salsa_solve
-
-    blur = fourier.BlurOperator((64, 64), 7, jnp.float64)
-    k = psf.gaussian_kernel(7, 0.4, 0.3, dtype=jnp.float64)
-    H = np.asarray(blur.otf(k))
-    x = np.kron(rng.random((8, 8)) * 100, np.ones((8, 8)))
-    y = oracles.np_blur(x, oracles.np_otf(np.asarray(k), (64, 64)))
-    y = jnp.asarray(y + 0.5 * rng.standard_normal((64, 64)))
-
-    args = (
-        y, jnp.asarray(H.real), jnp.asarray(H.imag),
-        jnp.float64(0.15), jnp.float64(0.015), jnp.float64(1e-6),
-        jnp.zeros_like(y),
-    )
-    kw = dict(blur=blur, max_iter=30, tv_iters=10, stop_criterion=1,
-              compute_mse=False, chambolle_tau=0.249, chambolle_tol=1e-3)
-    x_ref, tr_ref, n_ref, _ = _salsa_solve(*args, prox_mode="xla", **kw)
-    for mode in ("tiled", "streamed"):
-        x_m, tr_m, n_m, _ = _salsa_solve(
-            *args, prox_mode=mode, prox_interpret=True, **kw
-        )
-        np.testing.assert_allclose(np.asarray(x_m), np.asarray(x_ref), atol=1e-12)
-        np.testing.assert_allclose(
-            np.asarray(tr_m["objective"]), np.asarray(tr_ref["objective"]),
-            rtol=1e-12,
-        )
-        assert int(n_m) == int(n_ref)
-
-
-def test_resolve_salsa_prox_mode_ladder():
-    """Size → backend policy (CPU resolves 'xla'; the TPU ladder is pinned
-    by construction: pallas ≤512², tiled ≤1024², streamed ≥2048²)."""
-    from unittest import mock
-
-    import jax
-
-    from semiblind_tv_tpu.solvers.salsa import resolve_salsa_prox_mode
-
-    assert resolve_salsa_prox_mode(
-        fourier.BlurOperator((64, 64), 7, jnp.float64)
-    ) == "xla"
-    with mock.patch.object(jax, "default_backend", return_value="tpu"):
-        f32 = jnp.float32
-        assert resolve_salsa_prox_mode(
-            fourier.BlurOperator((512, 512), 7, f32)) == "pallas"
-        assert resolve_salsa_prox_mode(
-            fourier.BlurOperator((1024, 1024), 7, f32)) == "tiled"
-        assert resolve_salsa_prox_mode(
-            fourier.BlurOperator((2048, 2048), 7, f32)) == "streamed"
-        assert resolve_salsa_prox_mode(
-            fourier.BlurOperator((4096, 4096), 7, f32)) == "streamed"
-        # non-conforming row count and forced-off fall back to XLA
-        assert resolve_salsa_prox_mode(
-            fourier.BlurOperator((1000, 1000), 7, f32)) == "xla"
-        assert resolve_salsa_prox_mode(
-            fourier.BlurOperator((512, 512), 7, f32), use_pallas=False
-        ) == "xla"

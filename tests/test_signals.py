@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.utils import (
+from semiblind_tv.utils import (
     calctv,
     ensure,
     make_rd_squares,

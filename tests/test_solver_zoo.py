@@ -2,9 +2,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.ops import fourier, psf
-from semiblind_tv_tpu.solvers.coral import coral_tv_l1
-from semiblind_tv_tpu.solvers.spgl1 import project_l1_ball, spg_lasso, spgl1_bpdn
+from semiblind_tv.ops import fourier, psf
+from semiblind_tv.solvers.coral import coral_tv_l1
+from semiblind_tv.solvers.spgl1 import project_l1_ball, spg_lasso, spgl1_bpdn
 from tests import oracles
 
 SHAPE = (32, 32)
@@ -94,7 +94,7 @@ def test_coral_tv_warm_start(rng):
 def test_salsa_generic_matrix_operator(rng):
     """Generic SALSA with a dense-matrix operator (the reference's matrix-A
     path, SALSA_v2.m:283-300) solving a small L1 problem."""
-    from semiblind_tv_tpu.solvers.salsa_generic import salsa
+    from semiblind_tv.solvers.salsa_generic import salsa
 
     n, m = 48, 96
     Amat = jnp.asarray(rng.standard_normal((n, m)) / np.sqrt(n))
@@ -120,9 +120,9 @@ def test_salsa_generic_matrix_operator(rng):
 def test_salsa_generic_matches_salsa_tv(rng):
     """With the rfft operator + chambolle prox, generic salsa reproduces
     the specialised salsa_tv trajectory."""
-    from semiblind_tv_tpu.ops.tv import chambolle_prox, tv_norm
-    from semiblind_tv_tpu.solvers import salsa_tv
-    from semiblind_tv_tpu.solvers.salsa_generic import salsa
+    from semiblind_tv.ops.tv import chambolle_prox, tv_norm
+    from semiblind_tv.solvers import salsa_tv
+    from semiblind_tv.solvers.salsa_generic import salsa
 
     blur, H, x, y = __import__("tests.test_salsa", fromlist=["x"])._make_problem(rng)
     Hh = np.asarray(H)
@@ -153,7 +153,7 @@ def test_salsa_v1_inner_iters_denoising(rng):
     """SALSA v1 (SALSA/SALSA.m:476-502): with A = I the fixed point of the
     split is the prox itself — x* = soft(y, tau) as mu-ADMM converges; more
     inner iterations converge in fewer outer iterations."""
-    from semiblind_tv_tpu.solvers.salsa_generic import salsa_v1
+    from semiblind_tv.solvers.salsa_generic import salsa_v1
 
     y = jnp.asarray(rng.standard_normal(64) * 2.0)
     tau, mu = 0.5, 0.5
@@ -176,7 +176,7 @@ def test_salsa_v1_inner_iters_denoising(rng):
 def test_salsa_v1_matches_v2_at_one_inner_iter(rng):
     """With identity P and inner_iters=1 the v1 splitting is the same
     recursion as v2 (prox(x−b) → LS → dual update) — trajectories agree."""
-    from semiblind_tv_tpu.solvers.salsa_generic import salsa, salsa_v1
+    from semiblind_tv.solvers.salsa_generic import salsa, salsa_v1
 
     n, m = 32, 64
     Amat = jnp.asarray(rng.standard_normal((n, m)) / np.sqrt(n))
@@ -198,7 +198,7 @@ def test_salsa_v1_matches_v2_at_one_inner_iter(rng):
 def test_weighted_l1_projection_exact(rng):
     """Sort-based weighted projection vs a brute-force bisection oracle,
     and w=1 reduction to the unweighted projection."""
-    from semiblind_tv_tpu.solvers.spgl1 import project_weighted_l1_ball
+    from semiblind_tv.solvers.spgl1 import project_weighted_l1_ball
 
     v = rng.standard_normal(40) * 3.0
     w = rng.random(40) + 0.2
@@ -323,7 +323,7 @@ def test_subspace_minimization_refines_lasso(rng):
     on the L1 ball, (b) not degrade the objective at a matched iteration
     budget, and (c) typically reach a lower objective in fewer iterations
     on a well-conditioned sparse problem."""
-    from semiblind_tv_tpu.solvers.spgl1 import project_l1_ball
+    from semiblind_tv.solvers.spgl1 import project_l1_ball
 
     m, n = 60, 120
     A = rng.standard_normal((m, n)) / np.sqrt(m)

@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from semiblind_tv_tpu.ops import fourier
-from semiblind_tv_tpu.ops.psf import gaussian_kernel
-from semiblind_tv_tpu.ops.tv import chambolle_prox, divergence, forward_gradient, tv_norm
-from semiblind_tv_tpu.parallel.mesh import SPACE_AXIS, make_spatial_mesh
-from semiblind_tv_tpu.parallel import spatial
+from semiblind_tv.ops import fourier
+from semiblind_tv.ops.psf import gaussian_kernel
+from semiblind_tv.ops.tv import chambolle_prox, divergence, forward_gradient, tv_norm
+from semiblind_tv.parallel.mesh import SPACE_AXIS, make_spatial_mesh
+from semiblind_tv.parallel import spatial
 
 M = N = 64
 DTYPE = jnp.float64
@@ -175,7 +175,7 @@ def test_spatial_myula_step_matches_composition(mesh, img):
 
 
 def test_spatial_salsa_matches_single_device(mesh, img):
-    from semiblind_tv_tpu.solvers.salsa import salsa_tv
+    from semiblind_tv.solvers.salsa import salsa_tv
 
     blur = fourier.BlurOperator((M, N), 7, DTYPE, fft_mode="dft")
     H = blur.otf_host(gaussian_kernel(7, 0.4, 0.3, dtype=DTYPE))
@@ -185,8 +185,7 @@ def test_spatial_salsa_matches_single_device(mesh, img):
     )
     tau, mu = 0.08, 0.008
 
-    ref = salsa_tv(y, H, tau, mu, blur, max_iter=60, tol=1e-5, tv_iters=10,
-                   use_pallas=False)
+    ref = salsa_tv(y, H, tau, mu, blur, max_iter=60, tol=1e-5, tv_iters=10)
     x_sp, objs, n_it = spatial.spatial_salsa_tv(
         y, H, tau, mu, mesh, max_iter=60, tol=1e-5, tv_iters=10, dtype=DTYPE
     )
@@ -203,9 +202,9 @@ def test_spatial_sapg_matches_single_device(mesh):
     reduction-order rounding at f64."""
     import dataclasses as dc
 
-    from semiblind_tv_tpu.runtime import build_problem, gaussian_preset
-    from semiblind_tv_tpu.sapg import run_sapg
-    from semiblind_tv_tpu.utils import synthetic_wheel
+    from semiblind_tv.runtime import build_problem, gaussian_preset
+    from semiblind_tv.sapg import run_sapg
+    from semiblind_tv.utils import synthetic_wheel
 
     cfg = gaussian_preset(fix_w1=False, fix_w2=False)
     cfg = dc.replace(
@@ -239,8 +238,8 @@ def test_spatial_sapg_checkpoint_resume(mesh, tmp_path):
     spectrum rides as re/im planes, so nothing complex touches the host)."""
     import dataclasses as dc
 
-    from semiblind_tv_tpu.runtime import build_problem, gaussian_preset
-    from semiblind_tv_tpu.utils import synthetic_wheel
+    from semiblind_tv.runtime import build_problem, gaussian_preset
+    from semiblind_tv.utils import synthetic_wheel
 
     cfg = gaussian_preset(fix_w1=False, fix_w2=False)
     cfg = dc.replace(
@@ -273,8 +272,8 @@ def test_spatial_sapg_nan_guard_recovers(mesh, tmp_path):
     recovers from the last checkpoint to the uninterrupted trajectory."""
     import dataclasses as dc
 
-    from semiblind_tv_tpu.runtime import build_problem, gaussian_preset
-    from semiblind_tv_tpu.utils import synthetic_wheel
+    from semiblind_tv.runtime import build_problem, gaussian_preset
+    from semiblind_tv.utils import synthetic_wheel
 
     cfg = gaussian_preset(fix_w1=False, fix_w2=False)
     cfg = dc.replace(
@@ -306,7 +305,7 @@ def test_spatial_sapg_nan_guard_recovers(mesh, tmp_path):
 def test_space_mesh_cli_flag(tmp_path):
     """`run_demo --space-mesh S` routes the SAPG phase through
     run_sapg_spatial end-to-end (TODO r3: the spatial-mode CLI surface)."""
-    from semiblind_tv_tpu.cli.run_demo import main
+    from semiblind_tv.cli.run_demo import main
 
     results = main([
         "--psf", "gaussian", "--image", "synthetic", "--size", "32",
@@ -315,3 +314,13 @@ def test_space_mesh_cli_flag(tmp_path):
     ])
     assert np.isfinite(results["theta_EB"]) and np.isfinite(results["mse_db"])
     assert (tmp_path / "results.json").exists()
+
+
+def test_space_mesh_cli_flag_raises_when_devices_short():
+    """`--space-mesh S` with fewer than S devices fails instead of moving
+    the run to a virtual CPU mesh."""
+    from semiblind_tv.cli.run_demo import main
+
+    with pytest.raises(RuntimeError, match="needs 16 devices"):
+        main(["--psf", "gaussian", "--image", "synthetic", "--size", "32",
+              "--samples", "6", "--warmup", "4", "--space-mesh", "16"])

@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.ops import fourier, psf
-from semiblind_tv_tpu.ops.spatial_conv import circ_conv, circ_corr
+from semiblind_tv.ops import fourier, psf
+from semiblind_tv.ops.spatial_conv import circ_conv, circ_corr
 
 SHAPE = (32, 24)
 

@@ -13,11 +13,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu import metrics
-from semiblind_tv_tpu.runtime import build_problem, gaussian_preset
-from semiblind_tv_tpu.sapg import run_sapg
-from semiblind_tv_tpu.solvers import salsa_tv
-from semiblind_tv_tpu.utils import synthetic_wheel
+from semiblind_tv import metrics
+from semiblind_tv.runtime import build_problem, gaussian_preset
+from semiblind_tv.sapg import run_sapg
+from semiblind_tv.solvers import salsa_tv
+from semiblind_tv.utils import synthetic_wheel
 
 
 def test_gaussian_demo_eb_recovery_and_map_quality():
@@ -56,15 +56,14 @@ def test_gaussian_demo_eb_recovery_and_map_quality():
 
 
 def test_psf_log_scale_dynamics_match_numpy_oracle():
-    """The opt-in log-space PSF update (run_demo --psf-log-scale, VERDICT r3
-    next #7) against the independent NumPy oracle carrying the same
+    """The opt-in log-space PSF update (run_demo --psf-log-scale) against the independent NumPy oracle carrying the same
     extension: both implementations (different RNG streams) must land on
     the same Laplace-scale endpoint, certifying the extension's dynamics
     the same way the linear default is certified."""
     import dataclasses as dc
 
-    import oracles
-    from semiblind_tv_tpu.runtime import laplace_preset
+    from tests import oracles
+    from semiblind_tv.runtime import laplace_preset
 
     x = np.asarray(synthetic_wheel(64), dtype=np.float64)
     res_o = oracles.np_sapg_dynamics_run(
@@ -88,7 +87,7 @@ def test_psf_log_scale_dynamics_match_numpy_oracle():
 
 
 def test_moffat_dynamics_match_numpy_oracle():
-    """Moffat drift certification (VERDICT r1 missing #6).
+    """Moffat drift certification.
 
     tests/oracles.py::np_sapg_dynamics_run is an independent NumPy
     re-implementation of the reference's Moffat SAPG (spatial-domain
@@ -104,8 +103,8 @@ def test_moffat_dynamics_match_numpy_oracle():
     """
     import dataclasses as dc
 
-    import oracles
-    from semiblind_tv_tpu.runtime import moffat_preset
+    from tests import oracles
+    from semiblind_tv.runtime import moffat_preset
 
     x = np.asarray(synthetic_wheel(64), dtype=np.float64)
     res_o = oracles.np_sapg_dynamics_run(x, "moffat", seed=3, samples=1500, warmup=750)
@@ -141,8 +140,8 @@ def test_laplace_estimation_stays_well_posed():
     """
     import dataclasses as dc
 
-    from semiblind_tv_tpu.models import ParamSpec
-    from semiblind_tv_tpu.runtime import build_problem, laplace_preset
+    from semiblind_tv.models import ParamSpec
+    from semiblind_tv.runtime import build_problem, laplace_preset
 
     scale = (64 * 64) / (512 * 512)
     cfg = laplace_preset()
@@ -171,7 +170,7 @@ def test_gaussian_dynamics_oracle_smoke():
     """The Gaussian family of the dynamics simulator (run_Gaussian_demo.m
     constants, w1/w2 free): finite trajectories, box-respecting iterates,
     σ² moving toward truth from the BSNR-midpoint init."""
-    import oracles
+    from tests import oracles
 
     x = np.asarray(synthetic_wheel(48), dtype=np.float64)
     res = oracles.np_sapg_dynamics_run(x, "gaussian", seed=7, samples=200, warmup=100)

@@ -4,8 +4,8 @@ import os
 
 import pytest
 
-from semiblind_tv_tpu.runtime.profiling import MetricsLogger
-from semiblind_tv_tpu.runtime.tensorboard import TensorBoardWriter, _crc32c
+from semiblind_tv.runtime.profiling import MetricsLogger
+from semiblind_tv.runtime.tensorboard import TensorBoardWriter, _crc32c
 
 
 def test_crc32c_known_vectors():

@@ -1,9 +1,10 @@
 """TV norm and Chambolle prox vs the NumPy oracle (iteration-for-iteration)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from semiblind_tv_tpu.ops import tv
+from semiblind_tv.ops import tv
 from tests import oracles
 
 
@@ -80,7 +81,7 @@ def test_chambolle_batched_vmap(rng):
 
 def test_tv_denoise_circular_matches_oracle(rng):
     """Verbatim NumPy port of tvdenoising.m as oracle."""
-    from semiblind_tv_tpu.ops.tv import tv_denoise_circular
+    from semiblind_tv.ops.tv import tv_denoise_circular
 
     y = 10 * rng.standard_normal((24, 24))
     lam, niter, tau = 2.0, 30, 0.249
@@ -99,14 +100,52 @@ def test_tv_denoise_circular_matches_oracle(rng):
     got = tv_denoise_circular(jnp.asarray(y), lam, niter)
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-10)
     # it actually denoises: TV reduced
-    from semiblind_tv_tpu.ops.tv import tv_norm
+    from semiblind_tv.ops.tv import tv_norm
     assert float(tv_norm(jnp.asarray(got))) < float(tv_norm(jnp.asarray(y)))
 
 
 def test_projk_denoise_runs_and_smooths(rng):
-    from semiblind_tv_tpu.ops.tv import projk_denoise, tv_norm
+    from semiblind_tv.ops.tv import projk_denoise, tv_norm
 
     g = 10 * rng.standard_normal((16, 16))
     u = projk_denoise(jnp.asarray(g), 1.5, 40)
     assert np.all(np.isfinite(u))
     assert float(tv_norm(jnp.asarray(u))) < float(tv_norm(jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["fresh", "warm"])
+@pytest.mark.parametrize("tol", [1e-3, 0.0], ids=["early_exit", "no_exit"])
+def test_chambolle_xla_vs_oracle(rng, warm, tol):
+    """The XLA prox against np_chambolle on a non-square field, with fresh or
+    warm-started duals, with the residual early exit firing or disabled."""
+    g = 3.0 * rng.standard_normal((20, 28))
+    lam, max_iter = 0.1, 200
+    duals = None
+    if warm:
+        _, px0, py0, _, _ = oracles.np_chambolle(g, lam, 5)
+        duals = (px0, py0)
+    f, st = tv.chambolle_prox(
+        jnp.asarray(g), lam, max_iter, tol=tol,
+        duals=None if duals is None else tuple(jnp.asarray(d) for d in duals),
+    )
+    of, opx, opy, ok, oerr = oracles.np_chambolle(g, lam, max_iter, tol=tol, duals=duals)
+    assert int(st.iters) == ok
+    assert (ok < max_iter) == (tol > 0)
+    np.testing.assert_allclose(f, of, rtol=1e-9, atol=1e-10)
+    np.testing.assert_allclose(st.px, opx, rtol=1e-9, atol=1e-10)
+    np.testing.assert_allclose(st.py, opy, rtol=1e-9, atol=1e-10)
+    np.testing.assert_allclose(float(st.err), oerr, rtol=1e-8)
+
+
+@pytest.mark.parametrize("batch", [2, 5])
+def test_chambolle_vmapped_batch_vs_oracle(rng, batch):
+    """vmapped prox (the SAPG chains): every image keeps its own early exit
+    and matches the oracle on its own."""
+    g = rng.standard_normal((batch, 16, 16)) * np.linspace(1.0, 10.0, batch)[:, None, None]
+    f_b, st_b = jax.vmap(lambda x: tv.chambolle_prox(x, 0.1, 200))(jnp.asarray(g))
+    assert len(set(np.asarray(st_b.iters).tolist())) > 1  # exits differ per image
+    for i in range(batch):
+        of, opx, opy, ok, _ = oracles.np_chambolle(g[i], 0.1, 200)
+        assert int(st_b.iters[i]) == ok
+        np.testing.assert_allclose(f_b[i], of, rtol=1e-9, atol=1e-10)
+        np.testing.assert_allclose(st_b.px[i], opx, rtol=1e-9, atol=1e-10)

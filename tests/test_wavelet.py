@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from semiblind_tv_tpu.ops.wavelet import (
+from semiblind_tv.ops.wavelet import (
     ti_haar_analysis,
     ti_haar_synthesis,
     uniform_blur_kernel,
@@ -46,7 +46,7 @@ def test_uniform_blur_kernel():
 def test_daubcqf_reference_values():
     """daubcqf(4) must equal the reference's documented example
     (SALSA/daubcqf.m:19-24) to 4 decimals; daubcqf(2) is Haar."""
-    from semiblind_tv_tpu.ops.wavelet import daubcqf
+    from semiblind_tv.ops.wavelet import daubcqf
 
     h0, h1 = daubcqf(4)
     np.testing.assert_allclose(h0, [0.4830, 0.8365, 0.2241, -0.1294], atol=1e-4)
@@ -63,7 +63,7 @@ def test_daubcqf_mid_phase():
     magnitude response as min phase but a (near-)linear-phase root
     selection; equals min for N ≤ 6 (the index algebra picks the in-circle
     roots there) and differs from N = 8 up."""
-    from semiblind_tv_tpu.ops.wavelet import daubcqf
+    from semiblind_tv.ops.wavelet import daubcqf
 
     def phase_nonlinearity(h):
         w = np.linspace(0.01, np.pi * 0.9, 256)
@@ -95,7 +95,7 @@ def test_daubcqf_mid_phase():
 @pytest.mark.parametrize("order", [2, 4, 8])
 def test_daubcqf_orthonormal_cqf(order):
     """Σh0 = √2, ‖h0‖ = 1, even-shift orthonormality, h1 ⊥ h0 shifts."""
-    from semiblind_tv_tpu.ops.wavelet import daubcqf
+    from semiblind_tv.ops.wavelet import daubcqf
 
     h0, h1 = daubcqf(order)
     assert h0.sum() == pytest.approx(np.sqrt(2.0), rel=1e-12)
@@ -111,7 +111,7 @@ def test_daubcqf_orthonormal_cqf(order):
 def test_general_order_tight_frame(rng, order, levels):
     """W Wᵀ = I to 1e-10 at every order (the Sherman-Morrison requirement of
     the wavelet-L1 SALSA solve) + adjointness of analysis/synthesis."""
-    from semiblind_tv_tpu.ops.wavelet import ti_analysis, ti_synthesis
+    from semiblind_tv.ops.wavelet import ti_analysis, ti_synthesis
 
     x = rng.standard_normal((32, 32))
     z = ti_analysis(jnp.asarray(x), levels, order)
@@ -129,8 +129,8 @@ def test_wavelet_l1_db4_runs():
     """The L1 experiment accepts a non-Haar filter order end-to-end."""
     import jax
 
-    from semiblind_tv_tpu.sapg.wavelet_l1 import WaveletL1Config, run_sapg_wavelet_l1
-    from semiblind_tv_tpu.utils import synthetic_wheel
+    from semiblind_tv.sapg.wavelet_l1 import WaveletL1Config, run_sapg_wavelet_l1
+    from semiblind_tv.utils import synthetic_wheel
 
     cfg = WaveletL1Config(samples=30, burn_in=10, levels=2, wavelet_order=4,
                           salsa_iters=20)

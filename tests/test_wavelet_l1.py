@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from semiblind_tv_tpu.sapg.wavelet_l1 import WaveletL1Config, run_sapg_wavelet_l1
-from semiblind_tv_tpu.utils import synthetic_wheel
+from semiblind_tv.sapg.wavelet_l1 import WaveletL1Config, run_sapg_wavelet_l1
+from semiblind_tv.utils import synthetic_wheel
 
 
 def test_wavelet_l1_end_to_end():
@@ -29,7 +29,7 @@ def test_wavelet_l1_salsa_improves():
     x = synthetic_wheel(48)
     res = run_sapg_wavelet_l1(x, cfg, jax.random.key(1), dtype=jnp.float64)
     # recompute observation mse for comparison
-    from semiblind_tv_tpu.ops.wavelet import uniform_blur_kernel
+    from semiblind_tv.ops.wavelet import uniform_blur_kernel
 
     k = uniform_blur_kernel(48, 7)
     y = np.real(np.fft.ifft2(np.fft.fft2(k) * np.fft.fft2(x)))
